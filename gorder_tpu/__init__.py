@@ -1,4 +1,4 @@
-"""gorder-tpu: TPU-native lipid order-parameter analysis.
+"""gorder-tpu: accelerator-native lipid order-parameter analysis.
 
 A ground-up JAX/XLA re-architecture with the capability surface of the Rust
 `gorder` package (see SURVEY.md): atomistic, coarse-grained and united-atom
@@ -28,7 +28,8 @@ Python API::
 
 import jax as _jax
 
-# TPU matmuls default to bf16 inputs; the similarity/covariance algebra
+# Accelerator matmuls may default to reduced-precision inputs (TF32 on
+# NVIDIA tensor cores); the similarity/covariance algebra
 # (spectral clustering, PCA normals, leaflet reductions) needs real f32.
 # Set at package import so every entry point — kernels used directly as
 # well as the full pipeline — computes identically across backends. The

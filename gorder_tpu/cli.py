@@ -21,7 +21,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="gorder-tpu",
         description=(
             "Calculate lipid order parameters from GROMACS trajectories "
-            "(TPU-native rebuild of gorder)."
+            "(accelerator-native rebuild of gorder)."
         ),
     )
     parser.add_argument("config", help="path to the YAML configuration file")

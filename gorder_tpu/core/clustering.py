@@ -7,8 +7,8 @@ Spectral: similarity W = exp(−σ d²) over head-group atoms, normalized
 Laplacian I − D^{-1/2} W D^{-1/2}, the two smallest non-trivial eigenvectors
 row-normalized, k-means(k=2) with first-two-rows init. The reference runs a
 "precise" dense path for ≤5000 heads and a Lanczos "sloppy" heuristic with
-retries above; on TPU the dense eigendecomposition is cheap at these sizes,
-so the precise path runs always (deterministic — the retry/validation
+retries above; on the device the dense eigendecomposition is cheap at these
+sizes, so the precise path runs always (deterministic — the retry/validation
 machinery and its nondeterministic seed vector disappear, SURVEY.md §7
 step 9). Cluster→leaflet identity is resolved on the host: ab initio on the
 first assignment frame (larger cluster = upper; tie → the cluster holding
@@ -83,73 +83,6 @@ def _kmeans2(embedding):
     return (d1 < d0).astype(jnp.int32)
 
 
-def _inv_sqrt_spd(a, ridge=1e-4, iters=48):
-    """A^{-1/2} (and A^{1/2}) of an SPD matrix by coupled Newton–Schulz
-    iteration — pure matmuls, which stay accurate on TPU where the
-    device eigh does not (~1e-2·‖A‖ eigenvalue error observed on dense
-    similarity matrices). A small ridge bounds the conditioning of
-    numerically-redundant landmark sets; the spectral scale comes from a
-    deterministic power iteration."""
-    m = a.shape[0]
-    eye = jnp.eye(m, dtype=a.dtype)
-    a = a + ridge * eye
-
-    def pbody(_, v):
-        v = a @ v
-        return v / jnp.maximum(jnp.linalg.norm(v), 1e-30)
-
-    v0 = jnp.ones((m,), a.dtype) / jnp.sqrt(jnp.float32(m))
-    v = jax.lax.fori_loop(0, 16, pbody, v0)
-    lam = jnp.linalg.norm(a @ v) * 1.2 + 1e-30   # padded λ_max estimate
-    x = a / lam
-
-    def body(_, yz):
-        y, z = yz
-        t = 0.5 * (3.0 * eye - z @ y)
-        return (y @ t, t @ z)
-
-    y, z = jax.lax.fori_loop(0, iters, body, (x, eye))
-    return z / jnp.sqrt(lam)      # → A^{-1/2}
-
-
-def _top3_subspace(s_mat, v0, squarings=12, iters=4):
-    """Top-3 eigenvectors of a symmetric PSD matrix by polynomial-filtered
-    deterministic subspace iteration — pure matmuls + thin QR, which stay
-    accurate on TPU where the device n×n eigh does not (~1e-2·‖A‖
-    eigenvalue error observed on dense similarity matrices).
-
-    Spectral-clustering similarity spectra are nearly flat next to the
-    top eigenvalue (gaps of 1e-3), so plain power iterations would need
-    thousands of steps; squaring the matrix k times raises eigenvalue
-    ratios to the 2^k-th power (λ ratio 1.001 → ~60 after 12 squarings),
-    after which a few QR iterations converge. Rescaling by the largest
-    entry keeps the filtered matrix in f32 range; eigenvalue ORDER is
-    preserved, so the dominant subspace is unchanged. Any remaining
-    rotation within a near-degenerate top subspace is harmless — the
-    caller's null-deflation + principal-direction step is built for
-    exactly that."""
-    n = s_mat.shape[0]
-    i = jnp.arange(n, dtype=s_mat.dtype)
-    r1 = jnp.sin(0.7 * i + 0.3)
-    r2 = jnp.cos(1.3 * i + 0.1)
-    q0 = jnp.stack([v0, r1, r2], axis=1)
-    q, _ = jnp.linalg.qr(q0)
-
-    gp = s_mat / jnp.maximum(jnp.max(jnp.abs(s_mat)), 1e-30)
-    for _ in range(squarings):
-        gp = gp @ gp
-        gp = gp / jnp.maximum(jnp.max(jnp.abs(gp)), 1e-30)
-
-    def body(_, q):
-        q_next, _ = jnp.linalg.qr(gp @ q)
-        return q_next
-
-    q = jax.lax.fori_loop(0, iters, body, q)
-    # one final un-filtered refinement so the span tracks s_mat itself
-    q, _ = jnp.linalg.qr(s_mat @ q)
-    return q
-
-
 @functools.partial(jax.jit, static_argnames=("handle_pbc",))
 def _spectral_labels(coords, box_diag, head_idx, *, handle_pbc):
     """(B, A, 3) → (B, M) raw k-means cluster labels per frame."""
@@ -176,16 +109,9 @@ def _spectral_labels(coords, box_diag, head_idx, *, handle_pbc):
         s_mat = w * d_inv_sqrt[:, None] * d_inv_sqrt[None, :]
         v0 = jnp.sqrt(jnp.maximum(degree, 0.0))
         v0 = v0 / jnp.maximum(jnp.linalg.norm(v0), 1e-30)
-        if jax.default_backend() == "cpu":
-            # LAPACK eigh is accurate and cheap at membrane sizes
-            n = heads.shape[0]
-            _, vecs = jnp.linalg.eigh(jnp.eye(n) - s_mat)
-            span = vecs[:, :3]
-        else:
-            # TPU's device eigh shows ~1e-2·‖A‖ error on these dense
-            # similarity matrices; deterministic subspace iteration out
-            # of MXU matmuls stays accurate at any size
-            span = _top3_subspace(s_mat, v0)
+        n = heads.shape[0]
+        _, vecs = jnp.linalg.eigh(jnp.eye(n) - s_mat)
+        span = vecs[:, :3]
         span = span - v0[:, None] * (v0 @ span)[None, :]
         u, _, _ = jnp.linalg.svd(span, full_matrices=False)
         embedding = _rayleigh_weighted(u[:, :2],
@@ -233,10 +159,10 @@ def _rayleigh_weighted(u2, lap):
 
 # dense spectral clustering holds an (n, n) similarity matrix and runs a
 # full eigh — fine at membrane sizes (the reference's precise path caps at
-# 5000 heads and falls back to a heuristic Lanczos; on TPU dense stays
-# practical well beyond that). Larger systems switch to the Nyström
-# landmark path below: O(n · m) memory, dense MXU matmuls, no (n, n)
-# matrix — the TPU-native replacement for the reference's sparse-Lanczos
+# 5000 heads and falls back to a heuristic Lanczos). Larger systems switch
+# to the Nyström landmark path below: O(n · m) memory, dense matrix
+# products, no (n, n) matrix — the replacement for the reference's
+# sparse-Lanczos
 # "sloppy" regime (clustering.rs:163-246, src/lanczos/) including its
 # determinism problem: landmarks are stride-sampled, not random.
 DENSE_CLUSTER_HEADS = 20_000
@@ -270,43 +196,23 @@ def _spectral_labels_nystrom(coords, box_diag, head_idx, landmark_pos, *,
         w_ll = jnp.take(c, landmark_pos, axis=0)           # (m, m)
         t = jnp.sum(c, axis=0)                              # Cᵀ·1, (m,)
 
-        if jax.default_backend() == "cpu":
-            # W_LL^{-1/2} through its eigendecomposition (LAPACK),
-            # clipping numerically-null directions (landmark redundancy)
-            s, e = jnp.linalg.eigh(w_ll)
-            s_max = jnp.max(s)
-            good = s > NYSTROM_RANK_TOL * s_max
-            inv_sqrt_v = jnp.where(
-                good, 1.0 / jnp.sqrt(jnp.maximum(s, 1e-30)), 0.0)
-            inv_v = jnp.where(good, 1.0 / jnp.maximum(s, 1e-30), 0.0)
-            # approximate degrees: d̂ = C W_LL⁻¹ Cᵀ 1
-            degree = c @ (e @ (inv_v * (e.T @ t)))          # (n,)
-            degree = jnp.maximum(degree, 1e-10)
-            b = c * (1.0 / jnp.sqrt(degree))[:, None]       # D^{-1/2} C
-            r = b @ (e * inv_sqrt_v[None, :])               # (n, m)
-            g = r.T @ r
-            mu, q = jnp.linalg.eigh(g)                      # ascending
-            top = q[:, -3:]                                 # 3 largest
-            mu_top = jnp.maximum(mu[-3:], 1e-12)
-        else:
-            # accelerator: the device eigh is too inaccurate — use pure
-            # matmul algebra (Newton–Schulz W_LL^{-1/2}, deterministic
-            # subspace iteration for the top eigenpairs of G)
-            w_inv_sqrt = _inv_sqrt_spd(w_ll)                # (m, m)
-            degree = c @ (w_inv_sqrt @ (w_inv_sqrt @ t))
-            degree = jnp.maximum(degree, 1e-10)
-            b = c * (1.0 / jnp.sqrt(degree))[:, None]
-            r = b @ w_inv_sqrt                              # (n, m)
-            g = r.T @ r
-            m_land = g.shape[0]
-            gi = jnp.arange(m_land, dtype=g.dtype)
-            gv = jnp.sin(0.7 * gi + 0.3)
-            q3 = _top3_subspace(g, gv / jnp.linalg.norm(gv))
-            # Rayleigh–Ritz refinement in the converged 3-D subspace
-            h = q3.T @ (g @ q3)
-            mu3, e3 = jnp.linalg.eigh(h)                    # 3×3
-            top = q3 @ e3
-            mu_top = jnp.maximum(mu3, 1e-12)
+        # W_LL^{-1/2} through its eigendecomposition,
+        # clipping numerically-null directions (landmark redundancy)
+        s, e = jnp.linalg.eigh(w_ll)
+        s_max = jnp.max(s)
+        good = s > NYSTROM_RANK_TOL * s_max
+        inv_sqrt_v = jnp.where(
+            good, 1.0 / jnp.sqrt(jnp.maximum(s, 1e-30)), 0.0)
+        inv_v = jnp.where(good, 1.0 / jnp.maximum(s, 1e-30), 0.0)
+        # approximate degrees: d̂ = C W_LL⁻¹ Cᵀ 1
+        degree = c @ (e @ (inv_v * (e.T @ t)))          # (n,)
+        degree = jnp.maximum(degree, 1e-10)
+        b = c * (1.0 / jnp.sqrt(degree))[:, None]       # D^{-1/2} C
+        r = b @ (e * inv_sqrt_v[None, :])               # (n, m)
+        g = r.T @ r
+        mu, q = jnp.linalg.eigh(g)                      # ascending
+        top = q[:, -3:]                                 # 3 largest
+        mu_top = jnp.maximum(mu[-3:], 1e-12)
         u = (r @ top) * (1.0 / jnp.sqrt(mu_top))[None, :]   # (n, 3)
 
         # same rotation-robust, energy-weighted embedding as the dense

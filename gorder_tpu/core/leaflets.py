@@ -146,8 +146,8 @@ def make_local_classifier(membrane_indices, head_indices, normal_axis,
     """Local method: reference center = center of geometry of membrane atoms
     within an in-plane cylinder around each head.
 
-    The reference accelerates this with a cell grid; on TPU an O(M·Nm) masked
-    reduction maps straight onto the MXU/VPU (SURVEY.md §2.6 item 5)."""
+    The reference accelerates this with a cell grid; on the device an O(M·Nm)
+    masked reduction is one dense fused pass (SURVEY.md §2.6 item 5)."""
     membrane_d = put_const(np.asarray(membrane_indices, np.int32))
     heads_d = put_const(np.asarray(head_indices, np.int32))
     radius_d = jnp.float32(radius)

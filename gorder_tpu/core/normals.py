@@ -4,7 +4,7 @@ Behavioral reference: src/analysis/normal.rs — Static (axis), Dynamic
 (per-molecule per-frame PCA of the local head-group cloud,
 membrane_normal_from_cloud :421-458), Manual (per-frame per-molecule vectors).
 
-Dynamic normals on TPU: for every molecule, the cloud is every atom of the
+Dynamic normals on the device: for every molecule, the cloud is every atom of the
 normal-heads selection within `radius` of the molecule's head (min-image
 relative positions are whole by construction); the smallest principal axis
 comes from a closed-form batched 3x3 eigendecomposition of the masked

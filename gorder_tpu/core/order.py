@@ -3,30 +3,28 @@
 The reference's innermost hot loop (BondType::analyze_frame,
 src/analysis/topology/bond.rs:396-446: per bond instance → min-image vector →
 normal projection → `calc_sch` = 1.5·cos²θ − 0.5 → fixed-point accumulate)
-re-architected for TPU:
+re-architected for batched accelerator execution:
 
 - all bond instances of all molecule types form one flat index array;
 - a frame *batch* (B, A, 3) is processed by pure vectorized ops: gather both
   endpoints, min-image, P2 against the membrane normal, then per-frame
   per-bond-type reduction expressed as one einsum against a one-hot
-  (N × T) membership matrix — a single MXU matmul instead of 10⁴ scattered
-  accumulator updates;
+  (N × T) membership matrix — a single matrix product instead of 10⁴
+  scattered accumulator updates;
 - reference parity: each sample is quantized to 1e-6 fixed point exactly like
   the reference's `OrderValue` (src/analysis/order.rs:21-26: `(v as f64 *
   1e6).round()` — round half away from zero), reproduced bit-for-bit in
-  pure f32 via an error-free two-product (see quantize_split) because TPU
-  Pallas kernels have no f64. The quantized integers are
-  split into three 7-bit limbs so the reduction runs as exact f32 matmuls
-  on the MXU (each limb < 128, so per-frame per-type sums stay below 2^24
-  for up to ~131,000 bond instances per type — far beyond any membrane);
+  pure f32 via an error-free two-product (see quantize_split), so no f64
+  arithmetic is needed on the device. The quantized integers are
+  split into three 7-bit limbs so the reduction runs as exact matrix
+  products (each limb < 128, so per-frame per-type sums stay below 2^24
+  for up to MAX_EXACT_SAMPLES = 131,072 bond instances per type);
   limbs are recombined into int64 on the host. Results are then invariant
-  to batch size, device count and frame order — the TPU analogue of the
+  to batch size, device count and frame order — the analogue of the
   reference's thread-count invariance (SURVEY.md §4 tier 3).
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -51,11 +49,11 @@ _BL = 576.0      # 9·2^6: 1e6 − _BH, exact
 def _twoprod_err(a, ab):
     """Error term of the f32 product a·1e6: a·1e6 = ab + err exactly.
 
-    Two details are load-bearing under XLA:TPU (validated on hardware):
-    the Veltkamp split masks mantissa bits instead of using the
-    arithmetic `c − (c − a)` form, which the algebraic simplifier folds
-    away; and the correction terms are summed in Dekker's sequential
-    order — regrouping them loses exactness."""
+    Two details are load-bearing under XLA's algebraic simplifier: the
+    Veltkamp split masks mantissa bits instead of using the arithmetic
+    `c − (c − a)` form, which a simplifier may fold away; and the
+    correction terms are summed in Dekker's sequential order —
+    regrouping them loses exactness."""
     ah = jax.lax.bitcast_convert_type(
         jax.lax.bitcast_convert_type(a, jnp.uint32)
         & jnp.uint32(0xFFFFF000), jnp.float32)
@@ -71,8 +69,8 @@ def quantize_split(sch):
     The f64 product of an f32 value by 1e6 is exact (≤44 significant
     bits), so reproducing it in f32 needs only the error-free two-product:
     x + err == v·1e6 exactly; floor(x) plus a half-away test on the exact
-    residual then matches the reference's rounding bit for bit (works
-    identically inside Pallas kernels, which have no f64 on TPU)."""
+    residual then matches the reference's rounding bit for bit, with no
+    f64 arithmetic on the device."""
     x = sch * _SCALE
     err = _twoprod_err(sch, x)
     r = jnp.floor(x)
@@ -97,6 +95,25 @@ def recombine_limbs(rows: np.ndarray) -> np.ndarray:
             + rows[..., 2, :]).astype(np.int64)
     counts = rows[..., 3, :].astype(np.int64)
     return sums, counts
+
+
+def limb_reduce(l2, l1, l0, mask, onehot):
+    """(B, N) limbs and sample mask → (B, 4, T) per-type sums
+    [l2, l1, l0, count] of one frame batch.
+
+    Exact in bf16: every operand is a small integer — limbs are |v| < 128
+    (7 bits) and masks are {0, 1} — so the cast to bf16 (8-bit mantissa:
+    integers ≤ 256 exact), the bf16×bf16 products, and the f32
+    accumulation of integer values below 2^24 (MAX_EXACT_SAMPLES samples
+    per type) are all error-free, and the product runs at the bf16
+    matrix rate."""
+    stacked = jnp.stack(
+        [l2 * mask, l1 * mask, l0 * mask, mask],
+        axis=1).astype(jnp.bfloat16)                  # (B, 4, N)
+    return jnp.einsum(
+        "bcn,nt->bct", stacked, onehot.astype(jnp.bfloat16),
+        preferred_element_type=jnp.float32,
+    )
 
 
 def _one_hot(ids: np.ndarray, n: int) -> np.ndarray:
@@ -213,28 +230,13 @@ def _order_step_impl(coords, box_diag, normal, frame_mask, atom_a, atom_b,
         geo = inside_mask(mid, ref, box_diag, geom_spec, handle_pbc)
         ones = ones * geo
 
-    def reduce(mask):
-        # Exact bf16 MXU path: every operand is a small integer — limbs
-        # are |v| < 128 (7 bits) and masks are {0, 1} — so the cast to
-        # bf16 (8-bit mantissa: integers ≤ 256 exact), the bf16×bf16
-        # products, and the f32 accumulation are all error-free, while
-        # the matmul runs at the MXU's single-pass bf16 rate instead of
-        # the multi-pass f32 rate.
-        stacked = jnp.stack(
-            [l2 * mask, l1 * mask, l0 * mask, mask],
-            axis=1).astype(jnp.bfloat16)              # (B,4,N)
-        return jnp.einsum(
-            "bcn,nt->bct", stacked, onehot.astype(jnp.bfloat16),
-            preferred_element_type=jnp.float32,
-        )
-
     masks = {"total": ones}
     if with_leaflets:
         cls = jnp.take(leaflet_classes, bond_mol, axis=1)  # (B, N)
         masks["upper"] = ones * (cls == 0)
         masks["lower"] = ones * (cls == 1)
 
-    out = {c: reduce(m) for c, m in masks.items()}
+    out = {c: limb_reduce(l2, l1, l0, m, onehot) for c, m in masks.items()}
 
     if map_spec is not None:
         n_types = onehot.shape[1]
@@ -244,69 +246,12 @@ def _order_step_impl(coords, box_diag, normal, frame_mask, atom_a, atom_b,
 
 
 # jitted wrapper for direct per-batch use; the fused per-batch programs
-# (analysis.py _build_fused_steps) trace _order_step_impl inline instead —
+# (engine/fused.py _build_fused_steps) trace _order_step_impl inline instead —
 # a nested-jit boundary blocks XLA fusion with the wire reconstruction
 _order_step = jax.jit(
     _order_step_impl,
     static_argnames=("handle_pbc", "with_leaflets", "normal_mode",
                      "quantized", "map_spec", "geom_spec", "diff_input"),
-)
-
-
-def _map_only_impl(coords, box_diag, normal, frame_mask, atom_a, atom_b,
-                   bond_mol, leaflet_classes, inv_scale, bond_type_ids,
-                   map_state, *, handle_pbc, with_leaflets, normal_mode,
-                   quantized, map_spec, n_types):
-    """Ordermap tile accumulation only — the hybrid companion of the
-    Pallas fast path (ops/pallas_p2.py): the per-type reduction runs in
-    the fused kernel while this program feeds XLA's scatter engine with
-    the same per-sample math (ordermap.rs:21-200's add_order analogue).
-    The displacement/P2 math is recomputed rather than shipped between
-    the two programs — it is a few fused elementwise passes, cheaper
-    than materializing (B, N) intermediates through HBM twice."""
-    from .ordermap import map_cells, update_maps
-
-    if quantized:
-        # pair formulation like _order_step_impl's map/geom branch: map
-        # configurations match the reference's f32-position arithmetic
-        # exactly (see the single-rounding comment there)
-        coords = coords.astype(jnp.float32) * inv_scale[:, None, None]
-    pa = jnp.take(coords, atom_a, axis=1)
-    pb = jnp.take(coords, atom_b, axis=1)
-    d = pb - pa
-    if handle_pbc:
-        d = min_image(d, box_diag[:, None, :])
-
-    if normal_mode == "static":
-        proj = jnp.einsum("bnc,c->bn", d, normal)
-        n2 = jnp.float32(1.0)
-    else:
-        per_bond_normal = jnp.take(normal, bond_mol, axis=1)
-        proj = jnp.sum(d * per_bond_normal, axis=-1)
-        n2 = jnp.maximum(
-            jnp.sum(per_bond_normal * per_bond_normal, axis=-1), 1e-18)
-
-    d2 = jnp.sum(d * d, axis=-1)
-    cos2 = (proj * proj) / (jnp.maximum(d2, 1e-18) * n2)
-    sch = 1.5 * cos2 - 0.5
-
-    ones = jnp.broadcast_to(
-        frame_mask[:, None].astype(jnp.float32), sch.shape)
-    masks = {"total": ones}
-    if with_leaflets:
-        cls = jnp.take(leaflet_classes, bond_mol, axis=1)
-        masks["upper"] = ones * (cls == 0)
-        masks["lower"] = ones * (cls == 1)
-
-    mid = pa + d * 0.5
-    cells, _ = map_cells(mid, map_spec, bond_type_ids, n_types)
-    return update_maps(map_state, sch, cells, masks)
-
-
-_map_only_step = jax.jit(
-    _map_only_impl,
-    static_argnames=("handle_pbc", "with_leaflets", "normal_mode",
-                     "quantized", "map_spec", "n_types"),
 )
 
 
@@ -345,82 +290,8 @@ def make_order_step(
     onehot_d = put_const(_one_hot(np.asarray(bond_type), n_types))
     dummy_classes = put_const(np.zeros((1, 1), np.int32))
 
-    fast_step = None
-    fast_diff_step = None
-    fast_resid_step = None
-    from ..ops.pallas_p2 import make_pallas_order_step, pallas_supported
-
-    if pallas_supported(with_leaflets=with_leaflets, normal_mode=normal_mode,
-                        map_spec=map_spec, geom_spec=geom_spec,
-                        n_types=n_types):
-        fast_step = make_pallas_order_step(
-            np.asarray(atom_a, np.int32), np.asarray(atom_b, np.int32),
-            np.asarray(bond_type, np.int32), np.asarray(bond_mol, np.int32),
-            n_types, handle_pbc=handle_pbc, with_leaflets=with_leaflets,
-            normal_mode=normal_mode, pair_quantized=map_spec is not None,
-            with_geom=geom_spec is not None)
-        if not with_leaflets and normal_mode == "static":
-            # b7 wire variants: consume bond vectors directly (b7 is only
-            # eligible for pure bond-order runs, so this combination is
-            # the only one these paths can meet). The resid variant is
-            # the fastest: the kernel reconstructs d = f32(base + r)·s in
-            # VMEM from the wire's int16 residuals, never materializing
-            # the (B, N, 3) displacement array in HBM.
-            fast_diff_step = make_pallas_order_step(
-                np.asarray(atom_a, np.int32), np.asarray(atom_b, np.int32),
-                np.asarray(bond_type, np.int32),
-                np.asarray(bond_mol, np.int32),
-                n_types, handle_pbc=handle_pbc, with_leaflets=False,
-                normal_mode="static", diff_input=True)
-            fast_resid_step = make_pallas_order_step(
-                np.asarray(atom_a, np.int32), np.asarray(atom_b, np.int32),
-                np.asarray(bond_type, np.int32),
-                np.asarray(bond_mol, np.int32),
-                n_types, handle_pbc=handle_pbc, with_leaflets=False,
-                normal_mode="static", resid_input=True)
-
-    def _mesh_shards() -> int:
-        from ..parallel.context import active_mesh
-
-        mesh = active_mesh()
-        return int(mesh.devices.size) if mesh is not None else 1
-
-    def _batch_ok(batch_size: int) -> bool:
-        """The batch must tile the kernel's frame dimension on every
-        device of the active mesh (the kernel runs under shard_map over
-        the 'frames' axis — ops/pallas_p2.py)."""
-        n = _mesh_shards()
-        return batch_size % n == 0 and (batch_size // n) % 8 == 0
-
-    def _placement_ok(x):
-        s = getattr(x, "sharding", None)
-        if s is None or len(s.device_set) == 1:
-            return True
-        # multi-device placement: the shard_map wrapper handles arrays
-        # sharded over the active frames mesh
-        return _mesh_shards() > 1
-
     def step(coords, box_diag, normal, frame_mask, leaflet_classes=None,
              inv_scale=None, map_state=None, geom_ref=None):
-        if (fast_step is not None and geom_spec is None
-                and (leaflet_classes is not None) == with_leaflets
-                and geom_ref is None
-                and _batch_ok(coords.shape[0]) and _placement_ok(coords)):
-            out, _ = fast_step(coords, box_diag, normal, frame_mask,
-                               leaflet_classes=leaflet_classes,
-                               inv_scale=inv_scale)
-            if map_state is not None:
-                map_state = _map_only_step(
-                    coords, box_diag, normal, frame_mask,
-                    atom_a_d, atom_b_d, bond_mol_d,
-                    leaflet_classes if leaflet_classes is not None
-                    else dummy_classes,
-                    inv_scale, bond_type_d, map_state,
-                    handle_pbc=handle_pbc, with_leaflets=with_leaflets,
-                    normal_mode=normal_mode,
-                    quantized=inv_scale is not None,
-                    map_spec=map_spec, n_types=n_types)
-            return out, map_state
         return _order_step(
             coords, box_diag, normal, frame_mask,
             atom_a_d, atom_b_d, bond_mol_d, onehot_d,
@@ -433,98 +304,15 @@ def make_order_step(
 
     def step_impl(coords, box_diag, normal, frame_mask, leaflet_classes=None,
                   inv_scale=None, map_state=None, geom_ref=None,
-                  geom_plane=None, *,
-                  use_pallas=False, diff_input=False, resid_input=False):
+                  geom_plane=None, *, diff_input=False):
         """Traceable (unjitted) step body for fused per-batch programs
-        (analysis.py _build_fused_steps): the wire reconstruction and the
-        order kernel trace into ONE XLA program — a nested-jit boundary
-        between them forces canonical-layout materialization of the
-        (B, A, 3) coordinates (measured ~6x slower on TPU). `use_pallas`
-        is a trace-time constant decided by the caller via pallas_ok().
+        (engine/fused.py _build_fused_steps): the wire reconstruction and
+        the order kernel trace into ONE XLA program — a nested-jit boundary
+        between them forces materialization of the (B, A, 3) coordinates.
         With diff_input=True, `coords` is the (B, N, 3) bond-vector array
-        (b7 wire; no map/geom — b7 eligibility excludes them); use_pallas
-        routes it through the diff-input Pallas kernel. With
-        resid_input=True, `coords` is the b7 wire's (residuals int16
-        (B, nv), base int32 (nv,)) pair and use_pallas routes through the
-        in-kernel-reconstruction variant — the XLA fallback reconstructs
-        the diffs (bit-identically to _b7_impl) and takes the diff
-        path."""
-        if resid_input:
-            assert map_state is None and geom_ref is None
-            assert inv_scale is not None
-            r, base = coords
-            if use_pallas and fast_resid_step is not None \
-                    and geom_plane is None:
-                return fast_resid_step.impl((r, base), box_diag, normal,
-                                            frame_mask, inv_scale=inv_scale)
-            nv = base.shape[0]
-            coords = (base.reshape(1, nv).astype(jnp.int32)
-                      + r.astype(jnp.int32)).reshape(r.shape[0], nv // 3, 3)
-            diff_input = True
+        (b7 wire; no map/geom — b7 eligibility excludes them)."""
         if diff_input:
             assert map_state is None and geom_ref is None
-            if use_pallas and fast_diff_step is not None \
-                    and geom_plane is None:
-                return fast_diff_step.impl(coords, box_diag, normal,
-                                           frame_mask, inv_scale=inv_scale)
-            return _order_step_impl(
-                coords, box_diag, normal, frame_mask,
-                atom_a_d, atom_b_d, bond_mol_d, onehot_d,
-                leaflet_classes if leaflet_classes is not None
-                else dummy_classes,
-                inv_scale, bond_type_d, None, None, geom_plane,
-                handle_pbc=handle_pbc, with_leaflets=with_leaflets,
-                normal_mode=normal_mode, quantized=inv_scale is not None,
-                map_spec=None, geom_spec=None, diff_input=True,
-            )
-        if use_pallas:
-            if geom_spec is not None and geom_plane is None:
-                # the inside-shape midpoint mask, computed in XLA with
-                # exactly the XLA path's arithmetic (gathers CSE with the
-                # kernel's operand prep inside the one fused program);
-                # the kernel multiplies it into every accumulator mask
-                assert geom_ref is not None
-                from .geometry import inside_mask
-
-                if inv_scale is not None:
-                    scale3 = inv_scale[:, None, None]
-                    pa_i = jnp.take(coords, atom_a_d,
-                                    axis=1).astype(jnp.int32)
-                    pb_i = jnp.take(coords, atom_b_d,
-                                    axis=1).astype(jnp.int32)
-                    d = (pb_i - pa_i).astype(jnp.float32) * scale3
-                    pa = pa_i.astype(jnp.float32) * scale3
-                    coords_f = coords.astype(jnp.float32) * scale3
-                else:
-                    pa = jnp.take(coords, atom_a_d, axis=1)
-                    pb = jnp.take(coords, atom_b_d, axis=1)
-                    d = pb - pa
-                    coords_f = coords
-                if handle_pbc:
-                    d = min_image(d, box_diag[:, None, :])
-                mid = pa + d * 0.5
-                ref = _geometry_reference(coords_f, box_diag, geom_ref,
-                                          handle_pbc)
-                geom_plane = inside_mask(mid, ref, box_diag, geom_spec,
-                                         handle_pbc)
-            elif geom_spec is None:
-                assert geom_ref is None and geom_plane is None
-            out, _ = fast_step.impl(coords, box_diag, normal, frame_mask,
-                                    leaflet_classes=leaflet_classes,
-                                    inv_scale=inv_scale,
-                                    geom_plane=geom_plane)
-            if map_state is not None:
-                map_state = _map_only_impl(
-                    coords, box_diag, normal, frame_mask,
-                    atom_a_d, atom_b_d, bond_mol_d,
-                    leaflet_classes if leaflet_classes is not None
-                    else dummy_classes,
-                    inv_scale, bond_type_d, map_state,
-                    handle_pbc=handle_pbc, with_leaflets=with_leaflets,
-                    normal_mode=normal_mode,
-                    quantized=inv_scale is not None,
-                    map_spec=map_spec, n_types=n_types)
-            return out, map_state
         return _order_step_impl(
             coords, box_diag, normal, frame_mask,
             atom_a_d, atom_b_d, bond_mol_d, onehot_d,
@@ -532,34 +320,12 @@ def make_order_step(
             inv_scale, bond_type_d, map_state, geom_ref, geom_plane,
             handle_pbc=handle_pbc, with_leaflets=with_leaflets,
             normal_mode=normal_mode, quantized=inv_scale is not None,
-            map_spec=map_spec, geom_spec=geom_spec,
+            map_spec=None if diff_input else map_spec,
+            geom_spec=None if diff_input else geom_spec,
+            diff_input=diff_input,
         )
 
-    def pallas_ok(batch_size, has_classes, has_geom):
-        """Host-side predicate: may a fused program built for these batch
-        parameters route through the Pallas kernel? Mesh-aware: under a
-        frames mesh the kernel runs in shard_map, so the PER-DEVICE batch
-        must tile the frame dimension. Geometry runs take the kernel via
-        a precomputed midpoint mask plane (ops/pallas_p2.py with_geom)."""
-        return (fast_step is not None and has_classes == with_leaflets
-                and has_geom == (geom_spec is not None)
-                and _batch_ok(batch_size))
-
-    def disable_pallas():
-        """Permanently route this step through the XLA path — the
-        production fallback when the backend's Mosaic compiler rejects
-        the fused kernel (e.g. a libtpu without a supported matmul
-        lowering). Output is identical (tests/test_pallas.py)."""
-        nonlocal fast_step, fast_diff_step, fast_resid_step
-        fast_step = None
-        fast_diff_step = None
-        fast_resid_step = None
-
     step.impl = step_impl
-    step.pallas_ok = pallas_ok
-    step.pallas_resid_ok = lambda: fast_resid_step is not None
-    step.disable_pallas = disable_pallas
-    step.pallas_active = lambda: fast_step is not None
     return step
 
 

@@ -2,7 +2,7 @@
 
 Behavioral reference: src/analysis/uaorder.rs — buildH-style hydrogen
 reconstruction (constants :35-41, prediction :944-1106) and per-atom virtual
-bond accumulation. Re-architected for TPU: atoms are grouped by kind
+bond accumulation. Re-architected for batched execution: atoms are grouped by kind
 (CH3 / CH2 / CH1-unsaturated / CH1-saturated) into flat index arrays; each
 kind's hydrogens are reconstructed for the whole frame batch with vectorized
 Rodrigues rotations, then every virtual C-H sample flows through the same
@@ -16,7 +16,6 @@ Parity notes:
 
 from __future__ import annotations
 
-import functools
 from typing import Dict
 
 import jax
@@ -25,7 +24,7 @@ import numpy as np
 
 from ..parallel.context import put_const
 
-from .order import quantize_split
+from .order import limb_reduce, quantize_split
 from .pbc import min_image
 
 TETRAHEDRAL_ANGLE = np.float32(1.910633)
@@ -78,12 +77,9 @@ def predict_ch1_saturated(t, h1, h2, h3, box, handle_pbc):
 # Planar (structure-of-arrays) formulation — the production path.
 #
 # A vector-layout formulation operates on (..., 3) arrays whose minor
-# dimension is 3: on TPU the minor axis maps to the VPU's 128 lanes, so
-# every elementwise op runs at 3/128 lane occupancy. Measured on the UA
-# benchmark (v5e, batch 256, 17.4k virtual bonds/frame) the prediction
-# stage alone cost 8.1 of the step's 14.5 µs/frame in that layout. The
-# planar formulation computes on three (B, n) x/y/z planes (lanes across
-# atoms, fully occupied). A planar triple is a Python tuple (x, y, z) of
+# dimension is 3, so elementwise work is strided over a size-3 axis. The
+# planar formulation computes on three contiguous (B, n) x/y/z planes
+# instead. A planar triple is a Python tuple (x, y, z) of
 # same-shaped arrays. The vector-signature predictors above are thin
 # planarize→compute→restack wrappers so there is exactly one numeric
 # formulation (tests/test_kernel_units.py planar parity).
@@ -187,30 +183,6 @@ def predict_ch1_unsaturated_planar(t, h1, h2, box, handle_pbc):
     return [_padd_bond(t, hv)]
 
 
-def predict_ch1_unsaturated_planar_nacos(t, h1, h2, box, handle_pbc):
-    """acos-free ch1u variant for the Pallas TPU kernel: Mosaic has no
-    `acos` lowering (observed live: 'Unimplemented primitive ... acos'),
-    so the rotation by π − γ/2 is expressed through half-angle
-    identities instead — cos(π−γ/2) = −√((1+cosγ)/2) and
-    sin(π−γ/2) = √((1−cosγ)/2), both exact branches for γ ∈ [0, π].
-    Differs from the libm acos/cos path by a few ulps per sample, inside
-    the kernel's one-quantum-per-sample contract (ops/pallas_ua.py;
-    tests/test_pallas_ua.py)."""
-    th1 = _psub(h1, t)
-    th2 = _psub(h2, t)
-    if handle_pbc:
-        th1 = _pmin_image(th1, box)
-        th2 = _pmin_image(th2, box)
-    dot = _pdot(th1, th2)
-    norms = jnp.sqrt(_pdot(th1, th1) * _pdot(th2, th2))
-    cos_g = jnp.clip(dot / jnp.maximum(norms, 1e-30), -1.0, 1.0)
-    cos_r = -jnp.sqrt(jnp.maximum((1.0 + cos_g) * 0.5, 0.0))
-    sin_r = jnp.sqrt(jnp.maximum((1.0 - cos_g) * 0.5, 0.0))
-    axis = _pnormalize(_pcross(th1, th2))
-    hv = _prodrigues_cs(th2, axis, cos_r, sin_r)
-    return [_padd_bond(t, hv)]
-
-
 def predict_ch1_saturated_planar(t, h1, h2, h3, box, handle_pbc):
     th1 = _psub(h1, t)
     th2 = _psub(h2, t)
@@ -240,8 +212,8 @@ def _ua_step_impl(coords, box_diag, normal, frame_mask, indices, bond_mol,
     from .ordermap import map_cells, update_maps
 
     # Planar (structure-of-arrays) execution: all per-sample math runs on
-    # (B, n) x/y/z planes so the TPU's 128-lane VPU is fully occupied
-    # (see the planar-predictor block above). Planarize the coordinate
+    # contiguous (B, n) x/y/z planes (see the planar-predictor block
+    # above). Planarize the coordinate
     # array ONCE; every op from here on is bit-identical to the vector
     # formulation.
     if quantized:
@@ -332,24 +304,13 @@ def _ua_step_impl(coords, box_diag, normal, frame_mask, indices, bond_mol,
         geo = inside_mask(bond_pos, ref, box_diag, geom_spec, handle_pbc)
         ones = ones * geo
 
-    def reduce(mask):
-        # exact bf16 MXU path — same argument as core/order.py reduce:
-        # limbs |v| < 128 and masks {0, 1} are bf16-exact, products are
-        # exact, accumulation stays f32
-        stacked = jnp.stack(
-            [l2 * mask, l1 * mask, l0 * mask, mask],
-            axis=1).astype(jnp.bfloat16)
-        return jnp.einsum("bcn,nt->bct", stacked,
-                          onehot.astype(jnp.bfloat16),
-                          preferred_element_type=jnp.float32)
-
     masks = {"total": ones}
     if with_leaflets:
         cls = jnp.take(leaflet_classes, bond_mol, axis=1)
         masks["upper"] = ones * (cls == 0)
         masks["lower"] = ones * (cls == 1)
 
-    out = {c: reduce(m) for c, m in masks.items()}
+    out = {c: limb_reduce(l2, l1, l0, m, onehot) for c, m in masks.items()}
 
     if map_spec is not None:
         n_types = onehot.shape[1]
@@ -388,45 +349,8 @@ def make_ua_step(categories: Dict[str, Dict[str, np.ndarray]],
     bond_type_d = put_const(np.asarray(bond_type, np.int32))
     dummy = put_const(np.zeros((1, 1), np.int32))
 
-    fast_impl = None
-    from ..ops.pallas_ua import make_pallas_ua_step, pallas_ua_supported
-
-    if pallas_ua_supported(with_leaflets=with_leaflets,
-                           normal_mode=normal_mode, map_spec=map_spec,
-                           geom_spec=geom_spec, n_types=n_types):
-        fast_impl = make_pallas_ua_step(
-            categories, bond_type, bond_mol, n_types,
-            handle_pbc=handle_pbc, with_leaflets=with_leaflets,
-            normal_mode=normal_mode)
-    _fast_jit = [None]
-
-    def _mesh_shards() -> int:
-        from ..parallel.context import active_mesh
-
-        mesh = active_mesh()
-        return int(mesh.devices.size) if mesh is not None else 1
-
-    def _batch_ok(batch_size: int) -> bool:
-        n = _mesh_shards()
-        return batch_size % n == 0 and (batch_size // n) % 8 == 0
-
-    def _placement_ok(x):
-        s = getattr(x, "sharding", None)
-        if s is None or len(s.device_set) == 1:
-            return True
-        return _mesh_shards() > 1
-
     def step(coords, box_diag, normal, frame_mask, leaflet_classes=None,
              inv_scale=None, map_state=None, geom_ref=None):
-        if (fast_impl is not None
-                and (leaflet_classes is not None) == with_leaflets
-                and geom_ref is None and map_state is None
-                and _batch_ok(coords.shape[0]) and _placement_ok(coords)):
-            if _fast_jit[0] is None:
-                _fast_jit[0] = jax.jit(fast_impl)
-            return _fast_jit[0](coords, box_diag, normal, frame_mask,
-                                leaflet_classes=leaflet_classes,
-                                inv_scale=inv_scale)
         return _ua_step(
             coords, box_diag, normal, frame_mask, indices, bond_mol_d,
             onehot_d,
@@ -440,23 +364,13 @@ def make_ua_step(categories: Dict[str, Dict[str, np.ndarray]],
 
     def impl(coords, box_diag, normal, frame_mask, leaflet_classes=None,
              inv_scale=None, map_state=None, geom_ref=None,
-             geom_plane=None, *,
-             use_pallas=False, diff_input=False):
+             geom_plane=None, *, diff_input=False):
         """Traceable (unjitted) body for fused per-batch programs
-        (analysis.py _build_fused_steps): wire reconstruction and the UA
-        kernel compile as ONE XLA program. With use_pallas, routes
-        through the fused UA Pallas kernel (ops/pallas_ua.py) — virtual-H
-        reconstruction + P2 + exact limb reduction in VMEM. geom_plane
-        is accepted for signature parity with the bond-based step (the
-        decoder geometry channel is bond-wire-only, which UA never
-        rides)."""
+        (engine/fused.py _build_fused_steps): wire reconstruction and the
+        UA kernel compile as ONE XLA program. geom_plane is accepted for
+        signature parity with the bond-based step (the decoder geometry
+        channel is bond-wire-only, which UA never rides)."""
         assert not diff_input and geom_plane is None
-        if use_pallas:
-            assert fast_impl is not None and map_state is None \
-                and geom_ref is None
-            return fast_impl(coords, box_diag, normal, frame_mask,
-                             leaflet_classes=leaflet_classes,
-                             inv_scale=inv_scale)
         return _ua_step_impl(
             coords, box_diag, normal, frame_mask, indices, bond_mol_d,
             onehot_d,
@@ -468,21 +382,5 @@ def make_ua_step(categories: Dict[str, Dict[str, np.ndarray]],
             map_spec=map_spec, geom_spec=geom_spec,
         )
 
-    def pallas_ok(batch_size, has_classes, has_geom):
-        """Host-side predicate for fused programs (analysis.py), mirroring
-        core/order.py make_order_step.pallas_ok."""
-        return (fast_impl is not None and has_classes == with_leaflets
-                and not has_geom and _batch_ok(batch_size))
-
-    def disable_pallas():
-        """Production fallback when the backend's Mosaic compiler rejects
-        the fused kernel — the XLA path computes equivalent output."""
-        nonlocal fast_impl
-        fast_impl = None
-        _fast_jit[0] = None
-
     step.impl = impl
-    step.pallas_ok = pallas_ok
-    step.disable_pallas = disable_pallas
-    step.pallas_active = lambda: fast_impl is not None
     return step

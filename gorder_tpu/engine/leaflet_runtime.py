@@ -374,9 +374,10 @@ def build_leaflet_runtime(system: System, analysis: Analysis,
         runtime.cloud_to_mol = mol_pos
     elif params.kind in ("from_file", "from_map"):
         if params.kind == "from_file":
-            import yaml as _yaml
-
             from ..errors import ManualLeafletError
+            from ..input.config import yaml_module
+
+            _yaml = yaml_module()
 
             try:
                 with open(params.file) as fh:

@@ -190,8 +190,9 @@ def _build_normals(system: System, analysis: Analysis,
 
     # manual normals (from file or inline map)
     if mn.kind == "from_file":
-        import yaml as _yaml
+        from ..input.config import yaml_module
 
+        _yaml = yaml_module()
         try:
             with open(mn.file) as fh:
                 mapping = _yaml.safe_load(fh)

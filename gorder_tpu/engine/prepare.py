@@ -91,7 +91,7 @@ def _build_atom_space(system: System, analysis: Analysis, index_arrays):
     """Union of every atom the device pipeline gathers → compact wire
     subset + index remap.
 
-    The TPU equivalent of the reference's Master group ("only the necessary
+    The device-side equivalent of the reference's Master group ("only the necessary
     atoms are read from XTC", src/analysis/common.rs:62-105, 283-304): the
     decoder ships exactly these atoms, in compact slot order, and every
     device-side index tensor is remapped into slot space."""

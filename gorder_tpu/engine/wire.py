@@ -90,9 +90,8 @@ def _b7_residuals_impl(pk, gp, vl, nv: int):
     """Unpack the b7 wire's escape-applied residuals only: 7-bit codes
     (8 per 7 bytes) sign-extended + the sparse (gap u16, val i16) escape
     channel scattered in → (B, nv) int16 (codes are ±63 and escape values
-    i16 by format construction, so int16 is exact). The Pallas resid path
-    consumes this directly and adds the base in-kernel; _b7_impl layers
-    the base on top for the XLA path."""
+    i16 by format construction, so int16 is exact); _b7_impl adds the
+    per-batch base."""
     import jax.numpy as jnp
 
     b = pk.shape[0]

@@ -13,7 +13,7 @@ import os
 from dataclasses import InitVar, dataclass, field as dataclass_field
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
-import yaml
+import functools
 
 from ..errors import (ConfigError, ErrorEstimationError, FrequencyError,
                       GeometryError, OrderMapError, fnum)
@@ -27,29 +27,45 @@ class _Tagged(dict):
     tag: str = ""
 
 
-def _tag_constructor(loader, tag_suffix, node):
-    if isinstance(node, yaml.MappingNode):
-        value = loader.construct_mapping(node, deep=True)
-    elif isinstance(node, yaml.SequenceNode):
-        value = {"__seq__": loader.construct_sequence(node, deep=True)}
-    else:
-        scalar = loader.construct_scalar(node)
-        value = {} if scalar in (None, "") else {"__scalar__": scalar}
-    tagged = _Tagged(value)
-    tagged.tag = tag_suffix
-    return tagged
+def yaml_module():
+    """PyYAML, imported only where YAML is parsed: the package and the
+    Python API run without it."""
+    try:
+        import yaml
+    except ImportError:
+        raise ConfigError(
+            "reading YAML input needs the PyYAML package, which is not "
+            "installed (pip install pyyaml)") from None
+    return yaml
 
 
-class _ConfigLoader(yaml.SafeLoader):
-    pass
+@functools.lru_cache(maxsize=None)
+def _config_loader():
+    yaml = yaml_module()
 
+    def tag_constructor(loader, tag_suffix, node):
+        if isinstance(node, yaml.MappingNode):
+            value = loader.construct_mapping(node, deep=True)
+        elif isinstance(node, yaml.SequenceNode):
+            value = {"__seq__": loader.construct_sequence(node, deep=True)}
+        else:
+            scalar = loader.construct_scalar(node)
+            value = {} if scalar in (None, "") else {"__scalar__": scalar}
+        tagged = _Tagged(value)
+        tagged.tag = tag_suffix
+        return tagged
 
-_ConfigLoader.add_multi_constructor("!", _tag_constructor)
+    class ConfigLoader(yaml.SafeLoader):
+        pass
+
+    ConfigLoader.add_multi_constructor("!", tag_constructor)
+    return ConfigLoader
 
 
 def load_yaml(text: str, path: str = "<string>"):
+    yaml = yaml_module()
     try:
-        return yaml.load(text, Loader=_ConfigLoader)
+        return yaml.load(text, Loader=_config_loader())
     except yaml.YAMLError as e:
         # wording: src/errors.rs:292-294 (ConfigError::CouldNotParseConfig)
         raise ConfigError(

@@ -2,7 +2,7 @@
 
 The reference reads trajectories through groan_rs's vendored C `xdrfile`
 (SURVEY.md §2.6.1, "reads only the necessary atoms from XTC"); this is the
-TPU-era equivalent with subset/early-stop reads and fixed-point wire
+batched-device equivalent with subset/early-stop reads and fixed-point wire
 formats.
 
 The shared library is compiled on first use with g++ -O3 and cached next to

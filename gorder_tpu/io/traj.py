@@ -6,7 +6,7 @@ Behavioral reference: the reference's `read_trajectory` dispatch
 (CHANGELOG §1.1: duplicate frames at file boundaries are analyzed only once).
 
 The reader is host-side; it produces NumPy frame batches `(B, first_n, 3)`
-that the engine ships to the TPU. `first_n` is the number of leading atoms to
+that the engine ships to the device. `first_n` is the number of leading atoms to
 decode (the Master group is arranged to be a prefix permutation — atoms past
 the highest selected index are never decompressed).
 """
@@ -183,7 +183,7 @@ class AtomSubset:
     """Which atoms to extract from each frame, and the output layout.
 
     The reference reads only Master-group atoms from XTC
-    (src/analysis/common.rs:283-304); this is the TPU-era equivalent: the
+    (src/analysis/common.rs:283-304); this is the batched-device equivalent: the
     decoder early-stops after `first_n` atoms and gathers the selected ones
     into compact output slots, so the wire carries exactly the analyzed
     subset."""

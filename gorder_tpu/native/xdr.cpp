@@ -7,7 +7,7 @@
 //     reference consumes through groan_rs (SURVEY.md §2.6 item 1).
 //   * TRR: uncompressed big-endian records (float or double reals).
 //
-// Design goals (single host core feeding a TPU):
+// Design goals (single host core feeding an accelerator):
 //   - mmap + two-phase access: O(1)-per-frame index scan, then decode of an
 //     arbitrary subset of frames/atoms ("first_n" early-stop: gorder only
 //     needs the Master-group atoms, which callers arrange to be a prefix
@@ -576,7 +576,7 @@ struct I32Sink {
 };
 
 // Subset gather: routes file atom ordinals through a slot map (compact
-// selected-atom output — the TPU ships only the Master-group atoms, like
+// selected-atom output — the device receives only the Master-group atoms, like
 // the reference's group XTC reads, src/analysis/common.rs:283-304).
 template <typename Sink>
 struct SlotSink {

@@ -4,7 +4,7 @@ When several devices are visible, the pipeline data-parallelizes over
 trajectory frames: per-batch arrays (leading frame axis) are sharded over a
 1-D 'frames' mesh and constant tensors (bond indices, one-hots, selection
 tables) are replicated, so every jitted kernel partitions automatically
-under GSPMD — the TPU-native form of the reference's frame-round-robin
+under GSPMD — the device-native form of the reference's frame-round-robin
 threading (SURVEY.md §2.7). `GORDER_TPU_MESH=0` disables, `=N` caps the
 device count; the count is clipped to a divisor of the frame batch size.
 

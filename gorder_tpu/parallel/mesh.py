@@ -1,7 +1,7 @@
 """Multi-chip execution: data parallelism over trajectory frames.
 
 The reference's only parallelism is round-robin frame threading over OS
-threads with an associative merge (SURVEY.md §2.7). The TPU-native
+threads with an associative merge (SURVEY.md §2.7). The device-native
 equivalent: frame batches are sharded across a 1-D device mesh on the
 'frames' axis; every kernel in gorder_tpu.core is a pure per-frame map
 followed by a per-frame reduction, so sharding the batch axis requires no

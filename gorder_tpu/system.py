@@ -3,7 +3,7 @@
 The equivalent of the reference's `groan_rs::System` (SURVEY.md layer 0), but
 array-oriented: every per-atom attribute is a NumPy array so selections,
 grouping and topology compilation are vectorized host operations that produce
-static index tensors for the TPU kernels.
+static index tensors for the device kernels.
 
 Coordinates live here only for the *structure* frame; trajectory frames are
 streamed separately (gorder_tpu.io.traj) and never attached to the System.

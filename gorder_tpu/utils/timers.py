@@ -1,7 +1,7 @@
 """Phase timers and XLA profiler hooks.
 
 The reference ships no in-repo tracing (SURVEY §5: benchmarking is external
-via hyperfine); the TPU rebuild adds lightweight wall-clock phase timers —
+via hyperfine); the device rebuild adds lightweight wall-clock phase timers —
 logged after every run — plus an opt-in ``jax.profiler`` trace so kernel
 time on the device can be inspected with TensorBoard/XProf:
 

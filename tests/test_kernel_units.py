@@ -188,7 +188,7 @@ def test_ua_hydrogen_prediction_hand_values(fixtures):
 
 def test_ua_planar_predictors_bit_match_vector_forms():
     """The planar (structure-of-arrays) predictors — the production UA
-    path, lane-efficient on TPU — must be BIT-identical to the vector
+    path — must be BIT-identical to the vector
     reference formulation: same f32 operations in the same order
     (core/ua.py planar block)."""
     import jax.numpy as jnp

@@ -155,7 +155,7 @@ def test_aa_order_selected(fixtures, tmp_path):
 
 
 def test_batch_size_invariance(fixtures, cg_traj, tmp_path, monkeypatch):
-    """TPU analogue of the reference's thread-count invariance: results are
+    """Analogue of the reference's thread-count invariance: results are
     bit-identical across frame-batch sizes."""
     outputs = []
     for batch in (7, 32, 101):

@@ -1,14 +1,14 @@
 #!/bin/bash
-# Sequential TPU capture of the full benchmark table (docs/BENCHMARKS.md).
+# Sequential GPU capture of the full benchmark table (docs/BENCHMARKS.md).
 # Each mode prints one JSON line; everything lands in $OUT (default
-# /tmp/bench_captures.jsonl) with stderr in $OUT.log.
+# .bench_cache/bench_captures.jsonl) with stderr in $OUT.log.
 set -u
-OUT="${1:-/tmp/bench_captures.jsonl}"
+cd "$(dirname "$0")/.."
+mkdir -p .bench_cache
+OUT="${1:-.bench_cache/bench_captures.jsonl}"
 : > "$OUT"
 : > "$OUT.log"
-cd "$(dirname "$0")/.."
 export GORDER_BENCH_TRIALS="${GORDER_BENCH_TRIALS:-2}"
-export GORDER_BENCH_BUDGET_S="${GORDER_BENCH_BUDGET_S:-180}"
 MODES="${MODES:-aa-leaflets aa-local-leaflets aa-dynamic \
 aa-individual-leaflets aa-spherical-leaflets aa-clustering-leaflets \
 aa-fromfile-leaflets aa-palmitoyl aa-geometry cg ua ua-palmitoyl \

@@ -25,7 +25,10 @@ from gorder_tpu.io.traj import AtomSubset, Trajectory
 def main():
     n_frames = int(sys.argv[1]) if len(sys.argv) > 1 else 2000
     n_threads = int(sys.argv[2]) if len(sys.argv) > 2 else 1
-    cache = os.environ.get("GORDER_BENCH_CACHE", "/tmp/gorder_tpu_bench")
+    cache = os.environ.get(
+        "GORDER_BENCH_CACHE",
+        os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), ".bench_cache"))
     path = os.path.join(cache, "bench_10000.xtc")
     if not os.path.exists(path):
         cands = [f for f in os.listdir(cache) if f.endswith(".xtc")]

@@ -237,7 +237,7 @@ def main():
            "integration test and per golden file. `covered` = a repo test",
            "asserts the same golden output (or the listed behavior);",
            "`redesigned` = the reference mechanism does not exist in the",
-           "TPU architecture and the listed equivalent invariant is tested",
+           "batched-device architecture and the listed equivalent invariant is tested",
            "instead; `blocked` = the required binary fixture is absent from",
            "this checkout (/root/reference/.MISSING_LARGE_BLOBS).",
            ""]

@@ -27,7 +27,10 @@ from gorder_tpu.io.traj import AtomSubset, Trajectory
 
 def main():
     n_frames = int(sys.argv[1]) if len(sys.argv) > 1 else 400
-    cache = os.environ.get("GORDER_BENCH_CACHE", "/tmp/gorder_tpu_bench")
+    cache = os.environ.get(
+        "GORDER_BENCH_CACHE",
+        os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), ".bench_cache"))
     path = os.path.join(cache, "bench_10000.xtc")
     bnd = os.path.join(cache, "bench.bnd")
     if not (os.path.exists(path) and os.path.exists(bnd)):
